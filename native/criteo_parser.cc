@@ -1,12 +1,12 @@
 // Native Criteo TSV parser — the host-side data-plane hot path.
 //
-// TPU-native replacement for the C++ TFRecord reader + tf.Example parsing
+// Replacement for the C++ TFRecord reader + tf.Example parsing
 // threads the reference leans on (every input_fn, e.g. xdeepfm/xdeepfm.py:
 // 97-120) and the Spark ETL cast/impute stage (xdeepfm/gen_tfrecords.py:
 // 12-40): raw Criteo TSV bytes go straight to dense arrays, one pass, zero
 // Python-object overhead.
 //
-// Hash spec (MUST match recsys_tpu/data/hashing.py exactly): FNV-1a 64 over
+// Hash spec (MUST match recsys/data/hashing.py exactly): FNV-1a 64 over
 // the raw bytes, then a splitmix64 finalizer, reduced mod the per-field
 // bucket count. Missing categorical fields hash the literal token "NULL"
 // (fm/fm.py:44). Missing continuous fields parse to NaN; mean-imputation
@@ -14,7 +14,7 @@
 // place.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libcriteo_parser.so
-//        criteo_parser.cc   (see recsys_tpu/data/native.py)
+//        criteo_parser.cc   (see recsys/data/native.py)
 
 #include <cmath>
 #include <cstdint>

@@ -1,17 +1,16 @@
 // Threaded row gather for the host input pipeline.
 //
-// The per-epoch shuffle in recsys_tpu.data.loader.ShardSource is a random
+// The per-epoch shuffle in recsys.data.loader.ShardSource is a random
 // row permutation of each shard (dict of C-contiguous arrays). numpy's
-// fancy indexing runs it single-threaded at ~150 B/row gather cost, which
-// caps the host pipeline below the chip's training rate (~876k rows/s on a
-// 2-vCPU host vs 1.2-1.6M ex/s device). This is the TPU-native analog of
-// the reference's tf.data shuffle threads (fm/fm.py:106-112): a
-// memory-bound parallel gather,
+// fancy indexing runs it single-threaded, which can cap the host pipeline
+// below the device's training rate. This is the analog of the reference's
+// tf.data shuffle threads (fm/fm.py:106-112): a memory-bound parallel
+// gather,
 //
 //     dst[i*row] = src[idx[i]*row]  for i in [0, n)
 //
 // sliced across std::thread workers. Exposed via ctypes
-// (recsys_tpu/data/native.py: gather_rows), numpy fallback when no g++.
+// (recsys/data/native.py: gather_rows), numpy fallback when no g++.
 
 #include <cstdint>
 #include <cstring>

@@ -1,18 +1,17 @@
 """Scaling bench: the compiled SPMD program's collective volumes must match
 the documented dedup+a2a capacity contract — measured from the optimized
 HLO, not from the formula that produced it (the formula asserting itself
-would be vacuous). Plus worker subprocess runs and the analytic model."""
+would be vacuous). Plus worker subprocess runs."""
 
 import numpy as np
 
-from recsys_tpu.core.config import CriteoConfig
-from recsys_tpu.embeddings.engines import SPLIT_THRESHOLD
-from recsys_tpu.parallel.sharded_embedding import a2a_capacity
-from recsys_tpu.tools.bench_scaling import (
+from recsys.core.config import CriteoConfig
+from recsys.embeddings.engines import SPLIT_THRESHOLD
+from recsys.parallel.sharded_embedding import a2a_capacity
+from recsys.tools.bench_scaling import (
     collective_sizes,
     main,
     measured_collectives,
-    scaling_model,
 )
 
 
@@ -71,7 +70,7 @@ def test_hlo_collectives_match_documented_contract():
 
     # the DP gradient all-reduce of the row-sharded big table exists and
     # carries (big_rows/E)·W floats — the dense-update design (optim.py)
-    from recsys_tpu.embeddings.table import pad_rows
+    from recsys.embeddings.table import pad_rows
     cfg = CriteoConfig()
     big_pad_rows = pad_rows(sum(
         v for v in cfg.field_vocab_sizes if v > SPLIT_THRESHOLD))
@@ -92,17 +91,6 @@ def test_hlo_a2a_shrinks_with_model_axis():
     ids4 = max(c["bytes"] for c in got4["all-to-all"]
                if c["dtype"] == "s32")
     assert ids4 < ids2, (ids2, ids4)
-
-
-def test_scaling_model_terms():
-    """The v5e analytic model: sharding the table over 'model' shrinks the
-    two dominant terms (HBM optimizer pass, DP grad all-reduce)."""
-    m1 = scaling_model(model_axis=1, n_chips=8)
-    m2 = scaling_model(model_axis=2, n_chips=8)
-    assert m2["hbm_bytes_per_step"] < m1["hbm_bytes_per_step"]
-    assert m2["t_ici_ms"] < m1["t_ici_ms"]
-    assert m1["bound"] in ("hbm", "ici", "compute")
-    assert m1["predicted_examples_per_s_per_chip"] > 100_000
 
 
 def test_weak_scaling_two_meshes():

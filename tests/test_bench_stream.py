@@ -1,12 +1,12 @@
-"""bench_stream stage functions on tiny data (the TPU run writes
+"""bench_stream stage functions on tiny data (a device run writes
 STREAMING.md; this pins the mechanics on the CPU mesh)."""
 
 import os
 
 import numpy as np
 
-from recsys_tpu.data import criteo
-from recsys_tpu.tools import bench_stream
+from recsys.data import criteo
+from recsys.tools import bench_stream
 
 
 def test_synthetic_tsv_parses_through_preprocess(tmp_path):

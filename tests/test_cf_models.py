@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from recsys_tpu.data import movielens as ML
-from recsys_tpu.models import cdae as CDAE
-from recsys_tpu.models import vae_cf as V
-from recsys_tpu.train import metrics as M
-from recsys_tpu.train import optim
+from recsys.data import movielens as ML
+from recsys.models import cdae as CDAE
+from recsys.models import vae_cf as V
+from recsys.train import metrics as M
+from recsys.train import optim
 
 
 def _vae_data():
@@ -117,9 +117,9 @@ def test_vae_cf_product_trainer(tmp_path):
     """train_vae_cf runs the full reference protocol: anneal, per-epoch
     NDCG@100 validation, best-NDCG ckpt, restore-and-test
     (vae_cf_train_val.py:161-272)."""
-    from recsys_tpu.core.checkpoint import CheckpointManager
-    from recsys_tpu.train.summaries import read_scalars
-    from recsys_tpu.train.vae_loop import VaeTrainConfig, train_vae_cf
+    from recsys.core.checkpoint import CheckpointManager
+    from recsys.train.summaries import read_scalars
+    from recsys.train.vae_loop import VaeTrainConfig, train_vae_cf
 
     data = _vae_data()
     cfg = VaeTrainConfig(
@@ -151,7 +151,7 @@ def test_vae_cf_product_trainer(tmp_path):
 
 
 def test_train_vae_cli(tmp_path):
-    from recsys_tpu.tools.train_vae import main
+    from recsys.tools.train_vae import main
 
     result = main([
         "--epochs=2", "--batch_size=100", "--latent_dim=12",

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from recsys_tpu.models import ftrl_lr as F
-from recsys_tpu.models import gbdt_lr as G
+from recsys.models import ftrl_lr as F
+from recsys.models import gbdt_lr as G
 
 
 def _avazu_like_csv(path, n=600, seed=0):
@@ -110,7 +110,7 @@ def test_leaf_feature_comparison():
 
 
 def test_gbdt_fe_cli(capsys):
-    from recsys_tpu.tools.gbdt_fe import main
+    from recsys.tools.gbdt_fe import main
     out = main(["--synthetic_rows=600", "--n_trees=10", "--num_leaves=8",
                 "--stage1_trees=4", "--stage2_trees=8"])
     assert out["gbdt_lr"]["nce"] < 1.0

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from recsys_tpu.core import mesh as M
-from recsys_tpu.core.config import (
+from recsys.core import mesh as M
+from recsys.core.config import (
     CRITEO_CAT_VOCABS, CRITEO_CAT_VOCABS_FULL, CriteoConfig, RunConfig,
     apply_overrides, cont_bucket_sizes, to_json,
 )

@@ -1,9 +1,10 @@
 """Data plane: TSV preprocessing semantics, loader batching, determinism."""
 
 import numpy as np
+import pytest
 
-from recsys_tpu.core.config import CriteoConfig
-from recsys_tpu.data import criteo, hashing, loader
+from recsys.core.config import CriteoConfig
+from recsys.data import criteo, hashing, loader
 
 
 def _write_tsv(path, rows):
@@ -85,7 +86,7 @@ def test_shard_source_batching(tmp_path):
 
 
 def test_device_prefetch(tmp_path):
-    from recsys_tpu.core.mesh import make_virtual_mesh
+    from recsys.core.mesh import make_virtual_mesh
     env = make_virtual_mesh(8, model_axis=1)
     paths = criteo.write_synthetic_shards(str(tmp_path), 512, 2)
     src = loader.ShardSource(paths, batch_size=64, num_epochs=1)
@@ -98,7 +99,7 @@ def test_device_prefetch(tmp_path):
 
 def test_synthetic_bayes_ceiling():
     """True-probability metrics beat any trained model and are deterministic."""
-    from recsys_tpu.data.criteo import synthetic_bayes_metrics
+    from recsys.data.criteo import synthetic_bayes_metrics
 
     m1 = synthetic_bayes_metrics(20000, start_row=0)
     m2 = synthetic_bayes_metrics(20000, start_row=0)
@@ -106,5 +107,35 @@ def test_synthetic_bayes_ceiling():
     assert 0.80 < m1["auc"] < 0.95
     assert 0.3 < m1["logloss"] < 0.6
     # the "_true_prob" key never leaks into the training dict
-    from recsys_tpu.data.criteo import synthetic_criteo
+    from recsys.data.criteo import synthetic_criteo
     assert set(synthetic_criteo(64).keys()) == {"ids", "dense", "label"}
+
+
+def test_device_prefetch_reraises_producer_error():
+    """A failure while generating batches (e.g. the SPMD driver's mid-stream
+    a2a overflow check) reaches the consumer after the batches before it,
+    instead of ending the stream as if it were complete."""
+    from recsys.core.mesh import make_virtual_mesh
+    env = make_virtual_mesh(8, model_axis=1)
+
+    def gen():
+        for i in range(2):
+            yield {"x": np.full((8, 2), i, np.float32)}
+        raise ValueError("a2a overflow mid-stream")
+
+    it = loader.device_prefetch(gen(), env)
+    assert float(next(it)["x"][0, 0]) == 0.0
+    assert float(next(it)["x"][0, 0]) == 1.0
+    with pytest.raises(ValueError, match="a2a overflow"):
+        next(it)
+
+
+def test_device_prefetch_reraises_transfer_error():
+    """A failed host→device transfer raises in the consumer instead of
+    leaving it blocked on the queue forever."""
+    from recsys.core.mesh import make_virtual_mesh
+    env = make_virtual_mesh(8, model_axis=1)
+    # 7 rows cannot be split over an 8-way 'data' axis: device_put raises
+    batches = iter([{"x": np.zeros((7, 2), np.float32)}])
+    with pytest.raises(ValueError):
+        list(loader.device_prefetch(batches, env))

@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from recsys_tpu.core.config import ModelConfig
-from recsys_tpu.data import amazon
-from recsys_tpu.models.api import make_model
-from recsys_tpu.train import metrics as M
-from recsys_tpu.train import train_state as TS
+from recsys.core.config import ModelConfig
+from recsys.data import amazon
+from recsys.models.api import make_model
+from recsys.train import metrics as M
+from recsys.train import train_state as TS
 
 
 def test_build_examples_padding_buckets():
@@ -59,7 +59,7 @@ def test_train_din_cli_round_trip(tmp_path, monkeypatch):
     """The DIN task_type CLI (tools/train_din, reference din/din.py:204-248
     parity): train → checkpoint → eval → export → Servable predict."""
     monkeypatch.chdir(tmp_path)
-    from recsys_tpu.tools import train_din
+    from recsys.tools import train_din
 
     common = [
         "--synthetic_users=600", "--item_vocab=200", "--cate_vocab=10",
@@ -80,7 +80,7 @@ def test_train_din_cli_round_trip(tmp_path, monkeypatch):
 
     out = train_din.main(
         ["export", f"--export_dir={tmp_path / 'exp'}"] + common)
-    from recsys_tpu.serve.export import Servable
+    from recsys.serve.export import Servable
     sv = Servable(out["export_dir"], buckets=(16,))
     feats = sv._sample_features(5)
     probs = sv.predict(feats)

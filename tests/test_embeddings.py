@@ -6,9 +6,9 @@ import numpy as np
 from jax.sharding import PartitionSpec as P
 from jax import shard_map
 
-from recsys_tpu.core.mesh import make_virtual_mesh
-from recsys_tpu.embeddings import table as T
-from recsys_tpu.parallel import sharded_embedding as SE
+from recsys.core.mesh import make_virtual_mesh
+from recsys.embeddings import table as T
+from recsys.parallel import sharded_embedding as SE
 
 
 def test_field_offsets_and_global_ids():
@@ -21,7 +21,7 @@ def test_field_offsets_and_global_ids():
 
 
 def test_lookup_and_linear_shapes(rng):
-    from recsys_tpu.core.config import EmbeddingConfig
+    from recsys.core.config import EmbeddingConfig
     vocabs = (10, 20, 30)
     cfg = EmbeddingConfig(field_vocab_sizes=vocabs, embedding_dim=8)
     params = T.embedding_init(jax.random.key(0), cfg)
@@ -175,8 +175,8 @@ def test_split_engine_infer_gather_matches_train_matmul():
     training-path one-hot matmul exactly (same table rows either way)."""
     import jax
     import numpy as np
-    from recsys_tpu.core.config import EmbeddingConfig
-    from recsys_tpu.embeddings.engines import SplitEngine
+    from recsys.core.config import EmbeddingConfig
+    from recsys.embeddings.engines import SplitEngine
 
     cfg = EmbeddingConfig(field_vocab_sizes=(7, 3000, 50, 11), embedding_dim=8)
     eng = SplitEngine(cfg, threshold=64)

@@ -3,11 +3,11 @@
 import jax.numpy as jnp
 import numpy as np
 
-from recsys_tpu.core.config import CriteoConfig, ModelConfig, TrainConfig
-from recsys_tpu.data import criteo
-from recsys_tpu.models.api import make_model
-from recsys_tpu.train import fast, loop
-from recsys_tpu.train import train_state as TS
+from recsys.core.config import CriteoConfig, ModelConfig, TrainConfig
+from recsys.data import criteo
+from recsys.models.api import make_model
+from recsys.train import fast, loop
+from recsys.train import train_state as TS
 
 SMALL = CriteoConfig(cat_vocabs=tuple([80] * 26))
 
@@ -35,7 +35,7 @@ def test_scanned_eval_matches_streaming():
     data = criteo.synthetic_criteo(2048, SMALL)
     staged = fast.stage_dataset(data)
     eval_fn = fast.make_scanned_eval(model)
-    from recsys_tpu.train import metrics as M
+    from recsys.train import metrics as M
     idx = np.arange(2048).reshape(8, 256)
     m1 = M.finalize_binary_metrics(eval_fn(
         ts.params, ts.model_state, staged, jnp.asarray(idx, jnp.int32),

@@ -8,8 +8,9 @@ implementation under test.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from recsys_tpu.ops import interactions, nn
+from recsys.ops import interactions, nn
 
 
 def test_fm_pairwise_matches_pairwise_loop(rng):
@@ -65,7 +66,7 @@ def test_cin_matches_reference_split_matmul_conv(rng):
         pooled.append(nxt.sum(axis=2))
     oracle = np.concatenate(pooled, axis=1)
 
-    got = np.asarray(interactions.cin_apply(params, jnp.asarray(x0)))
+    got = np.asarray(interactions.cin_apply_xla(params, jnp.asarray(x0)))
     np.testing.assert_allclose(got, oracle, rtol=1e-3, atol=1e-3)
 
 
@@ -122,3 +123,69 @@ def test_mlp_bn_dropout_shapes_and_state(rng):
         np.asarray(s1["layers"][0]["bn"]["mean"]),
         np.asarray(state["layers"][0]["bn"]["mean"]),
     )
+
+
+def _cin_conv_reference(params, x0):
+    """The split-matmul/conv formulation of the test above in jnp: per
+    embedding dim the [F0, Fk] outer product, 'conv1d' = matmul with
+    [F0·Fk, H] filters, relu, sum-pool over D."""
+    b, f0, d = x0.shape
+    xk = x0
+    pooled = []
+    for layer in params:
+        z = jnp.einsum("bpd,bqd->bdpq", x0, xk).reshape(b, d, -1)
+        xk = jax.nn.relu(jnp.einsum("bdk,kh->bhd", z, layer["w"])
+                         + layer["b"][None, :, None])
+        pooled.append(jnp.sum(xk, axis=2))
+    return jnp.concatenate(pooled, axis=1)
+
+
+@pytest.mark.parametrize("layer_sizes", [(4,), (5, 3), (20, 10, 10)])
+def test_cin_xla_matches_conv_reference(layer_sizes):
+    b, f0, d = 24, 7, 8
+    params = interactions.cin_init(jax.random.key(0), f0, layer_sizes)
+    x0 = jax.random.normal(jax.random.key(1), (b, f0, d), jnp.float32)
+    got = interactions.cin_apply_xla(params, x0)
+    want = _cin_conv_reference(params, x0)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_cin_xla_grads_match_conv_reference():
+    b, f0, d = 16, 6, 4
+    layer_sizes = (5, 3)
+    params = interactions.cin_init(jax.random.key(2), f0, layer_sizes)
+    x0 = jax.random.normal(jax.random.key(3), (b, f0, d), jnp.float32)
+    # a scalar loss touching every output element unevenly
+    w_out = jax.random.normal(jax.random.key(4), (sum(layer_sizes),))
+
+    def loss(fn):
+        return lambda p, x: jnp.sum(fn(p, x) * w_out)
+
+    gp, gx = jax.grad(loss(interactions.cin_apply_xla), (0, 1))(params, x0)
+    rp, rx = jax.grad(loss(_cin_conv_reference), (0, 1))(params, x0)
+    np.testing.assert_allclose(np.asarray(gx), np.asarray(rx),
+                               rtol=1e-4, atol=1e-5)
+    for got, want in zip(gp, rp):
+        for k in ("w", "b"):
+            np.testing.assert_allclose(np.asarray(got[k]),
+                                       np.asarray(want[k]),
+                                       rtol=1e-4, atol=1e-5)
+
+
+def test_cin_xla_preserves_bf16_dtype():
+    """bf16 primals keep their dtype through forward AND grad."""
+    params = interactions.cin_init(jax.random.key(3), 6, (4, 3))
+    params = jax.tree.map(lambda p: p.astype(jnp.bfloat16), params)
+    x0 = jax.random.normal(jax.random.key(4), (8, 6, 4), jnp.bfloat16)
+    out = interactions.cin_apply_xla(params, x0)
+    assert out.dtype == jnp.bfloat16
+
+    def loss(p, x):
+        return jnp.sum(interactions.cin_apply_xla(p, x).astype(jnp.float32))
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(params, x0)
+    assert gx.dtype == jnp.bfloat16
+    for layer in gp:
+        assert layer["w"].dtype == jnp.bfloat16
+        assert layer["b"].dtype == jnp.bfloat16

@@ -3,9 +3,10 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 from sklearn.metrics import roc_auc_score
 
-from recsys_tpu.train import metrics as M
+from recsys.train import metrics as M
 
 
 def _stream_auc(logits, labels, num_bins, chunks=4):
@@ -93,3 +94,18 @@ def test_nce(rng):
     p = np.full(500, y.mean())
     # predicting the base rate ⇒ NCE == 1
     assert abs(M.normalized_cross_entropy(y, p) - 1.0) < 1e-9
+
+
+@pytest.mark.parametrize("case", ["continuous", "tied", "imbalanced"])
+def test_roc_auc_matches_sklearn(case, rng):
+    n = 5000
+    score = rng.normal(size=n)
+    if case == "tied":
+        score = np.round(score, 1)          # many tied scores
+    y = (rng.normal(size=n) + score > (1.5 if case == "imbalanced" else 0))
+    assert abs(M.roc_auc(y, score) - roc_auc_score(y, score)) < 1e-12
+
+
+def test_roc_auc_needs_both_classes():
+    with pytest.raises(ValueError):
+        M.roc_auc(np.ones(8), np.arange(8.0))

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from recsys_tpu.core.config import CriteoConfig, ModelConfig
-from recsys_tpu.models.api import make_model
+from recsys.core.config import CriteoConfig, ModelConfig
+from recsys.models.api import make_model
 
 # small vocab config for fast tests
 SMALL = CriteoConfig(
@@ -67,7 +67,7 @@ def test_deterministic_eval(rng):
 
 
 def test_din_forward_and_grad(rng):
-    from recsys_tpu.core.config import ModelConfig
+    from recsys.core.config import ModelConfig
     model = make_model("din", 100, 20,
                        ModelConfig(name="din", embedding_dim=8,
                                    attention_layers=(8, 4),

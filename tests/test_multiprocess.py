@@ -24,7 +24,7 @@ def test_two_process_psum_and_file_sharding():
     procs = []
     for pid in range(2):
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "recsys_tpu.tools.mp_smoke",
+            [sys.executable, "-m", "recsys.tools.mp_smoke",
              f"--coordinator=127.0.0.1:{port}",
              "--num_processes=2", f"--process_id={pid}",
              "--local_devices=2"],
@@ -59,8 +59,8 @@ def test_two_process_streaming_train_to_auc_floor(tmp_path):
     4-device global mesh, and both report final eval AUC above the floor
     (the 2-worker MirroredStrategy train_and_evaluate analog,
     deepfm/deepfm.py:159-210 + :188-194 per-process file lists)."""
-    from recsys_tpu.core.config import CriteoConfig
-    from recsys_tpu.data import criteo
+    from recsys.core.config import CriteoConfig
+    from recsys.data import criteo
 
     small = CriteoConfig(cat_vocabs=tuple([200] * 6))
     data_dir, eval_dir = str(tmp_path / "train"), str(tmp_path / "eval")
@@ -78,7 +78,7 @@ def test_two_process_streaming_train_to_auc_floor(tmp_path):
     procs = []
     for pid in range(2):
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "recsys_tpu.tools.mp_smoke",
+            [sys.executable, "-m", "recsys.tools.mp_smoke",
              "--mode=stream",
              f"--coordinator=127.0.0.1:{port}",
              "--num_processes=2", f"--process_id={pid}",

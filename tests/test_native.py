@@ -1,11 +1,11 @@
 """Native C++ parser: build, parse, and bit-exact hash parity with the
-python spec (recsys_tpu/data/hashing.py)."""
+python spec (recsys/data/hashing.py)."""
 
 import numpy as np
 import pytest
 
-from recsys_tpu.core.config import CriteoConfig
-from recsys_tpu.data import criteo, hashing, native
+from recsys.core.config import CriteoConfig
+from recsys.data import criteo, hashing, native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="no native toolchain"
@@ -79,7 +79,7 @@ def test_throughput_smoke():
 
 def test_gather_rows_parity_and_fallback():
     import numpy as np
-    from recsys_tpu.data import native
+    from recsys.data import native
 
     rng = np.random.default_rng(0)
     for shape, dtype in (((1000, 13), np.float32), ((1000, 26), np.int32),
@@ -96,7 +96,7 @@ def test_gather_rows_parity_and_fallback():
 def test_gather_rows_rejects_out_of_range():
     import numpy as np
     import pytest
-    from recsys_tpu.data import native
+    from recsys.data import native
 
     src = np.arange(20, dtype=np.float32).reshape(10, 2)
     with pytest.raises(IndexError):

@@ -4,10 +4,10 @@ import jax
 import numpy as np
 import pytest
 
-from recsys_tpu.core.config import CriteoConfig, ModelConfig
-from recsys_tpu.data import criteo
-from recsys_tpu.models.api import make_model
-from recsys_tpu.serve.export import Servable, export_servable
+from recsys.core.config import CriteoConfig, ModelConfig
+from recsys.data import criteo
+from recsys.models.api import make_model
+from recsys.serve.export import Servable, export_servable
 
 SMALL = CriteoConfig(cat_vocabs=tuple([50] * 20 + [5000] * 6))
 
@@ -44,7 +44,7 @@ def test_numpy_engine_no_bn(tmp_path):
 
 
 def test_numpy_engine_rejects_unsupported(tmp_path):
-    from recsys_tpu.models.din import make_din
+    from recsys.models.din import make_din
 
     mcfg = ModelConfig(name="din", embedding_dim=8, use_bn=False,
                        attention_layers=(8, 4), mlp_layers=(16, 8, 4))

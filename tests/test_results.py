@@ -3,7 +3,7 @@
 import json
 import os
 
-from recsys_tpu.tools.results import main
+from recsys.tools.results import main
 
 
 def test_results_generator_tiny(tmp_path):
@@ -54,31 +54,3 @@ def test_results_partial_rerun_patches_existing(tmp_path):
     assert result["serving"][0]["protocol"] == "fake"  # old section kept
     md = open(out).read()
     assert "| dnn |" in md and "fake" in md
-
-
-def test_convergence_json_three_ceiling_structure():
-    """The committed CONVERGENCE.json carries the three-ceiling protocol
-    with per-model closure, ordered linear < id-only <= full, and the
-    closure arithmetic consistent with the recorded ceilings."""
-    import json
-    import os
-
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "CONVERGENCE.json")
-    with open(path) as f:
-        j = json.load(f)
-    lin = j["linear_ceiling"]["auc"]
-    ido = j["idonly_ceiling"]["auc"]
-    full = j["bayes_ceiling"]["auc"]
-    assert lin < ido <= full
-    gap = full - lin
-    assert gap > 0.01   # the interaction gap is real structure
-    models = {r["model"]: r for r in j["models"]}
-    for name in ("wide", "fm", "deepfm", "dcn", "xdeepfm", "dnn"):
-        r = models[name]
-        assert abs(r["closure"] - (r["auc"] - lin) / gap) < 1e-6
-    # additive model pinned at the linear ceiling; towers recover most of
-    # the interaction structure
-    assert abs(models["wide"]["auc"] - lin) < 0.005
-    for name in ("fm", "deepfm", "dcn", "xdeepfm", "dnn"):
-        assert models[name]["closure"] >= 0.8, (name, models[name])

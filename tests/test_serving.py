@@ -7,12 +7,12 @@ import jax
 import numpy as np
 import pytest
 
-from recsys_tpu.core.config import CriteoConfig, ModelConfig
-from recsys_tpu.data import criteo
-from recsys_tpu.models.api import make_model
-from recsys_tpu.serve import client as C
-from recsys_tpu.serve.export import Servable, export_servable
-from recsys_tpu.serve.server import make_grpc_server, make_rest_server
+from recsys.core.config import CriteoConfig, ModelConfig
+from recsys.data import criteo
+from recsys.models.api import make_model
+from recsys.serve import client as C
+from recsys.serve.export import Servable, export_servable
+from recsys.serve.server import make_grpc_server, make_rest_server
 
 SMALL = CriteoConfig(cat_vocabs=tuple([50] * 26))
 MCFG = ModelConfig(name="fm", embedding_dim=8)
@@ -83,7 +83,7 @@ def test_grpc_round_trip(exported):
 
 def test_microbatcher_coalesces(exported):
     sv = Servable(exported, buckets=(8, 64))
-    from recsys_tpu.serve.server import _MicroBatcher
+    from recsys.serve.server import _MicroBatcher
     mb = _MicroBatcher(sv, timeout_ms=20.0)
     feats, _ = _features(4)
     results = {}
@@ -106,7 +106,7 @@ def test_din_export_serve_round_trip(tmp_path):
     """Non-Criteo export/serve: DIN warms up from its meta-declared sample
     features and serves over REST (reference exports every estimator model,
     deepfm/deepfm.py:220-233)."""
-    from recsys_tpu.models.din import make_din
+    from recsys.models.din import make_din
 
     mcfg = ModelConfig(name="din", embedding_dim=8, use_bn=False,
                        attention_layers=(8, 4), mlp_layers=(16, 8, 4))
@@ -165,7 +165,7 @@ def test_binary_prepared_round_trip(exported):
 
 
 def test_socket_round_trip(exported):
-    from recsys_tpu.serve.fastsock import SocketClient, SocketServer
+    from recsys.serve.fastsock import SocketClient, SocketServer
 
     sv = Servable(exported, buckets=(8, 32))
     srv = SocketServer(sv, port=0)
@@ -195,8 +195,8 @@ def test_socket_rejects_oversized_frame(exported):
     import socket as socket_mod
     import struct
 
-    from recsys_tpu.serve import fastsock
-    from recsys_tpu.serve.fastsock import SocketServer
+    from recsys.serve import fastsock
+    from recsys.serve.fastsock import SocketServer
 
     sv = Servable(exported, buckets=(8, 32))
     srv = SocketServer(sv, port=0)
@@ -221,7 +221,7 @@ def test_socket_rejects_oversized_frame(exported):
 
 
 def test_raw_wire_format_round_trip():
-    from recsys_tpu.serve.server import encode_raw, parse_raw, parse_request
+    from recsys.serve.server import encode_raw, parse_raw, parse_request
 
     feats = {
         "ids": np.arange(78, dtype=np.int32).reshape(2, 39),
@@ -238,7 +238,7 @@ def test_raw_wire_format_round_trip():
 
 
 def test_socket_raw_round_trip(exported):
-    from recsys_tpu.serve.fastsock import SocketClient, SocketServer
+    from recsys.serve.fastsock import SocketClient, SocketServer
 
     sv = Servable(exported, buckets=(8, 32))
     srv = SocketServer(sv, port=0)
@@ -258,7 +258,7 @@ def test_grpc_async_pipelined(exported):
     """Future-based async predicts (stub.Predict.future parity,
     deepfm/grpc_client.py:80): N in-flight requests on one channel all
     resolve to the direct servable results."""
-    from recsys_tpu.serve.server import make_grpc_server
+    from recsys.serve.server import make_grpc_server
 
     sv = Servable(exported, buckets=(8, 32))
     server, batcher = make_grpc_server(sv, port=18517)
@@ -280,3 +280,36 @@ def test_grpc_async_pipelined(exported):
     finally:
         server.stop(0)
         batcher.stop()
+
+
+@pytest.mark.parametrize("have_grpc", [True, False])
+def test_start_servers_with_and_without_grpc(exported, monkeypatch,
+                                             have_grpc):
+    """All front-ends come up on one micro-batcher; without grpcio the
+    gRPC endpoint is left out and REST + socket still answer."""
+    import sys
+
+    from recsys.serve.fastsock import SocketClient
+    from recsys.serve.server import start_servers
+
+    if not have_grpc:
+        monkeypatch.setitem(sys.modules, "grpc", None)   # import fails
+    sv = Servable(exported, buckets=(8, 32))
+    endpoints, stop = start_servers(sv, 0)
+    try:
+        assert ("gRPC" in endpoints) == have_grpc
+        assert endpoints["socket"] == endpoints["REST"] + 2
+        feats, _ = _features(12)
+        direct = sv.predict(feats)
+        np.testing.assert_allclose(C.rest_predict(endpoints["REST"], feats),
+                                   direct, rtol=1e-5, atol=1e-6)
+        sc = SocketClient(endpoints["socket"])
+        np.testing.assert_allclose(sc.predict(feats), direct,
+                                   rtol=1e-6, atol=1e-7)
+        sc.close()
+        if have_grpc:
+            np.testing.assert_allclose(
+                C.grpc_predict(endpoints["gRPC"], feats), direct,
+                rtol=1e-5, atol=1e-6)
+    finally:
+        stop()

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from recsys_tpu.core.config import CriteoConfig, ModelConfig
-from recsys_tpu.core.mesh import MeshConfig, make_mesh, make_virtual_mesh
-from recsys_tpu.data import criteo
-from recsys_tpu.models.api import make_model
-from recsys_tpu.parallel import spmd
-from recsys_tpu.train import optim
+from recsys.core.config import CriteoConfig, ModelConfig
+from recsys.core.mesh import MeshConfig, make_mesh, make_virtual_mesh
+from recsys.data import criteo
+from recsys.models.api import make_model
+from recsys.parallel import spmd
+from recsys.train import optim
 
 SMALL = CriteoConfig(cat_vocabs=tuple([40] * 26))
 
@@ -121,7 +121,7 @@ def test_spmd_grads_match_local_exactly(model_axis):
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from recsys_tpu.core.mesh import DATA_AXIS
+    from recsys.core.mesh import DATA_AXIS
 
     env = make_virtual_mesh(8, model_axis=model_axis)
     model = make_model(

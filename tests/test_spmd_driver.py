@@ -7,11 +7,11 @@ import os
 
 import numpy as np
 
-from recsys_tpu.core.config import CriteoConfig, MeshConfig, ModelConfig, TrainConfig
-from recsys_tpu.data import criteo
-from recsys_tpu.models.api import make_model
-from recsys_tpu.train import spmd_loop
-from recsys_tpu.train.summaries import read_scalars
+from recsys.core.config import CriteoConfig, MeshConfig, ModelConfig, TrainConfig
+from recsys.data import criteo
+from recsys.models.api import make_model
+from recsys.train import spmd_loop
+from recsys.train.summaries import read_scalars
 
 SMALL = CriteoConfig(cat_vocabs=tuple([80] * 26))
 
@@ -48,7 +48,7 @@ def test_cli_spmd_mesh(tmp_path, monkeypatch):
     """train_ctr CLI with --mesh.model_axis=2 routes through the SPMD driver
     on the 8-device virtual mesh and reaches the AUC floor."""
     monkeypatch.chdir(tmp_path)
-    from recsys_tpu.tools import train_ctr
+    from recsys.tools import train_ctr
 
     metrics = train_ctr.main([
         "train",
@@ -88,7 +88,7 @@ def test_spmd_driver_ftrl_wide(tmp_path):
 def test_spmd_stream_driver_learns(tmp_path):
     """Streaming SPMD driver: ShardSource epochs → stacks → device_prefetch
     → mesh. Same AUC floor as the in-memory driver."""
-    from recsys_tpu.data import loader
+    from recsys.data import loader
 
     paths = criteo.write_synthetic_shards(
         str(tmp_path / "shards"), 30_000, 5, SMALL)
@@ -118,7 +118,7 @@ def test_spmd_stream_driver_learns(tmp_path):
 def test_spmd_stream_epoch_bound(tmp_path):
     """Bounded epochs: the stream ends when the source is exhausted, partial
     stacks drop, and the driver still returns metrics."""
-    from recsys_tpu.data import loader
+    from recsys.data import loader
 
     paths = criteo.write_synthetic_shards(
         str(tmp_path / "shards"), 4_000, 2, SMALL)

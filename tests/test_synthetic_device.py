@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from recsys_tpu.core.config import CriteoConfig, ModelConfig
-from recsys_tpu.data import criteo, synthetic_device as sd
+from recsys.core.config import CriteoConfig, ModelConfig
+from recsys.data import criteo, synthetic_device as sd
 
 SMALL = CriteoConfig(cat_vocabs=tuple([200] * 6))
 
@@ -94,8 +94,8 @@ def test_idonly_ceiling_below_full_ceiling():
 def test_sampler_fused_training_learns():
     """The sampler-fused scan (converge.py's step) trains toward the
     planted task on fresh device samples."""
-    from recsys_tpu.models.api import make_model
-    from recsys_tpu.train import fast, optim, train_state as TS
+    from recsys.models.api import make_model
+    from recsys.train import fast, optim, train_state as TS
 
     model = make_model("fm", SMALL, ModelConfig(name="fm", embedding_dim=8))
     sched = optim.cosine_decay(5e-3, 300, warmup_steps=20)
@@ -111,7 +111,7 @@ def test_sampler_fused_training_learns():
 
 def test_cosine_decay_schedule():
     lr = optim_lr = None
-    from recsys_tpu.train import optim
+    from recsys.train import optim
     lr = optim.cosine_decay(1.0, total_steps=100, warmup_steps=10)
     assert float(lr(jnp.float32(5))) == 0.5           # mid-warmup
     assert abs(float(lr(jnp.float32(10))) - 1.0) < 1e-6

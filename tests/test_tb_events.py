@@ -10,7 +10,7 @@ import os
 import numpy as np
 import pytest
 
-from recsys_tpu.train import summaries, tb_events
+from recsys.train import summaries, tb_events
 
 tb_loader = pytest.importorskip(
     "tensorboard.backend.event_processing.event_file_loader")

@@ -6,11 +6,11 @@ import logging
 import jax
 import numpy as np
 
-from recsys_tpu.core.checkpoint import CheckpointManager
-from recsys_tpu.core.config import CriteoConfig, ModelConfig, TrainConfig
-from recsys_tpu.data import criteo
-from recsys_tpu.models.api import make_model
-from recsys_tpu.train import loop, train_state as TS
+from recsys.core.checkpoint import CheckpointManager
+from recsys.core.config import CriteoConfig, ModelConfig, TrainConfig
+from recsys.data import criteo
+from recsys.models.api import make_model
+from recsys.train import loop, train_state as TS
 
 SMALL = CriteoConfig(cat_vocabs=tuple([100] * 26))
 
@@ -40,7 +40,7 @@ def test_fm_learns_synthetic(tmp_path):
 
 
 def test_deepfm_learns_and_resumes(tmp_path, caplog):
-    caplog.set_level(logging.INFO, logger="recsys_tpu")
+    caplog.set_level(logging.INFO, logger="recsys")
     model = make_model(
         "deepfm", SMALL, ModelConfig(embedding_dim=8, deep_layers=(32, 16))
     )
@@ -96,7 +96,7 @@ def test_eval_step_streaming(tmp_path):
 def test_wide_trains_with_ftrl(tmp_path):
     """The wide model is FTRL-backed like the reference's LinearClassifier
     (deep&wide/deep&wide.py:146-149; FTRL math ftrl/ftrl.py:153-181)."""
-    from recsys_tpu.train import optim
+    from recsys.train import optim
 
     model = make_model("wide", SMALL, ModelConfig())
     assert model.meta.get("optimizer") == "ftrl"
@@ -127,7 +127,7 @@ def test_checkpoint_restore_is_strict(tmp_path):
 
 
 def test_scalar_summaries_roundtrip(tmp_path):
-    from recsys_tpu.train.summaries import ScalarWriter, read_scalars
+    from recsys.train.summaries import ScalarWriter, read_scalars
 
     with ScalarWriter(str(tmp_path)) as w:
         w.write(10, loss=1.5, examples_per_sec=1000.0)
@@ -141,7 +141,7 @@ def test_deepfm_demo_schema_learns(tmp_path):
     """The reference DeepFM's hashed-int u_id/i_id demo variant
     (deepfm/deepfm.py:41-49): the generic CTR zoo runs on a 2-field schema
     and learns the planted user×item structure."""
-    from recsys_tpu.data import demo
+    from recsys.data import demo
 
     schema = demo.demo_schema(u_buckets=20_000, i_buckets=5_000)
     data = demo.synthetic_demo(40_000, n_users=300, n_items=100, rank=4,

@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from recsys_tpu.extras import vi_gmm
+from recsys.extras import vi_gmm
 
 
 def _numpy_cavi_step(data, phi, m, s2, sigma):
